@@ -1,8 +1,8 @@
-"""legoloam_tpu — a TPU-native LiDAR SLAM engine with the capabilities of LeGO-LOAM.
+"""legoloam_tpu — a LiDAR SLAM engine in JAX with the capabilities of LeGO-LOAM.
 
-A from-scratch rebuild of the LeGO-LOAM pipeline (Shan & Englot, IROS 2018;
-reference C++ at /root/reference) as a library of pure jitted JAX functions over
-dense fixed-shape arrays, designed for TPU:
+A from-scratch rebuild of the LeGO-LOAM pipeline (Shan & Englot, IROS 2018)
+as a library of pure jitted JAX functions over dense fixed-shape arrays, run
+on an NVIDIA GPU (tests run on the CPU):
 
   * ``ops/``      — per-scan kernels: projection, segmentation, de-skew, features,
                     voxel/NN search, batched LM linear algebra.
@@ -12,24 +12,22 @@ dense fixed-shape arrays, designed for TPU:
   * ``utils/``    — synthetic worlds, dataset IO, trajectory metrics, profiling.
 
 The reference's four ROS processes become jitted stages passing device arrays;
-its PCL/OpenCV/gtsam dependencies are re-implemented from scratch on TPU
+its PCL/OpenCV/gtsam dependencies are re-implemented from scratch on array
 primitives (see SURVEY.md §2 for the component-by-component mapping).
 """
 
 import jax as _jax
 
-# Geometry demands true float32 matmuls.  On TPU the MXU's DEFAULT matmul
-# precision truncates f32 operands to bfloat16 (8 significand bits): a single
-# `transform_points` at 70 m world coordinates then carries ~0.1 m of
-# quantization error (measured on v5e — vs ~1e-5 at f32), which smears every
-# keyframe cloud, corrupts the scan-to-map feedback, and turns long
-# trajectories into runaway drift (found via the ring-world divergence,
-# tools/diag_map.py: CPU clean, TPU diverging).  The hot large matmuls (kNN
-# distance passes, normal-equation assembly) already request
-# Precision.HIGHEST explicitly; this sets the same default for every other
-# dot/einsum in the library — they are small or bandwidth-bound, so the cost
-# is nil.  Callers wanting bf16 for an op can still pass `precision=` there.
-_jax.config.update("jax_default_matmul_precision", "high")
+# Geometry demands true float32 matmuls.  Below "highest", a float32 dot may
+# run with reduced-precision operands (TF32 on NVIDIA tensor cores keeps 10
+# mantissa bits): at 70 m world coordinates a single ``transform_points``
+# then errs by centimetres per point, which smears every keyframe cloud,
+# corrupts the scan-to-map feedback and turns long trajectories into runaway
+# drift.  The hot large matmuls request Precision.HIGHEST at their call sites
+# anyway; this sets the same default for every other dot/einsum in the
+# library — they are small or bandwidth-bound, so the cost is nil.  Callers
+# wanting a faster precision for one op can still pass ``precision=`` there.
+_jax.config.update("jax_default_matmul_precision", "highest")
 
 from . import config                                              # noqa: E402
 from .config import DEFAULT, PipelineConfig, SensorConfig         # noqa: E402

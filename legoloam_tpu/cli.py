@@ -75,6 +75,9 @@ def main(argv=None):
         jax.config.update("jax_platforms", args.backend)
     import dataclasses
 
+    from .utils import compile_cache
+    compile_cache.enable()
+
     import jax.numpy as jnp
     import numpy as np
 

@@ -1,4 +1,4 @@
-"""Static configuration for the TPU-native LeGO-LOAM rebuild.
+"""Static configuration for the LeGO-LOAM rebuild.
 
 The reference keeps all configuration as compile-time ``extern const`` globals in a
 single header (reference: ``LeGO-LOAM/include/utility.h:53-136``).  We mirror that
@@ -89,17 +89,14 @@ class SegmentationConfig:
     valid_point_num: int = 5                 # segmentValidPointNum
     valid_line_num: int = 3                  # segmentValidLineNum
     min_cluster_size: int = 30               # imageProjection.cpp:440
-    # Upper BOUND on segmented-scan sweeps for the connected-component
-    # kernel; both backends sweep until the labels reach a fixpoint (exactly
+    # Upper BOUND on segmented-scan sweeps for connected-component
+    # labeling, which sweeps until the labels reach a fixpoint (exactly
     # the reference BFS partition, imageProjection.cpp:370-460) and this only
     # caps adversarial snake-shaped components.  Each sweep propagates labels
     # across entire straight runs, so the bound limits the number of BENDS in
     # a component's min-label path, not its diameter; realistic scans
     # converge in <= 6 sweeps.
     ccl_max_iters: int = 32
-    # CCL implementation: "auto" = VMEM-resident Pallas kernel on TPU, XLA
-    # segmented scans elsewhere; "pallas" / "xla" force one.
-    ccl_backend: str = "auto"
     # Thinning of non-feature points (imageProjection.cpp:328-339).
     outlier_downsample: int = 5              # keep 1-in-5 columns of big outliers
     ground_downsample: int = 5               # keep 1-in-5 ground columns
@@ -112,13 +109,12 @@ class FeatureConfig:
     sections: int = 6                  # sectionsTotal
     # Picks per ring-section.  The reference hard-codes 2 sharp / 4 flat
     # (featureAssociation.cpp:709,747) — a CPU-budget choice, not a modeling
-    # one.  Batched solves make extra residual rows nearly free on TPU; 2x
-    # the picks measurably steadies the two-step LM on motion-distorted
-    # scans, while the round-3 3x default (6/12) bought nothing further
-    # once re-validated under realistic sensor noise (sigma=0.02 fused ATE:
-    # 2/4 0.031, 4/8 0.025, 6/12 0.028 — tools/sweep_picks.py --noise) and
-    # cost ~3.5% headline throughput.  Set 2/4 to reproduce the reference
-    # counts.
+    # one.  Batched solves make extra residual rows cheap; 2x the picks
+    # measurably steadies the two-step LM on motion-distorted scans, while
+    # the round-3 3x default (6/12) bought nothing further once re-validated
+    # under realistic sensor noise (sigma=0.02 fused ATE: 2/4 0.031, 4/8
+    # 0.025, 6/12 0.028 — tools/sweep_picks.py --noise).  Set 2/4 to
+    # reproduce the reference counts.
     edge_per_section: int = 4          # sharp corner picks  (reference: 2)
     edge_less_per_section: int = 20    # less-sharp picks    (featureAssociation.cpp:711)
     surf_per_section: int = 8          # flat planar picks   (reference: 4)
@@ -135,15 +131,12 @@ class FeatureConfig:
     max_flat: int = 1024
     max_less_flat: int = 8192
     max_outlier: int = 2048            # thinned invalid-cluster points
-    # Pick-loop implementation: "auto" = VMEM-resident Pallas kernel on TPU,
-    # XLA dense one-hot trips elsewhere; "pallas" / "xla" force one.
-    picks_backend: str = "auto"
     # Less-flat 0.2 m downsample implementation.  The reference runs a PCL
     # VoxelGrid PER RING (featureAssociation.cpp:771-783); ring points are
     # azimuth-ordered, so one-pass first-of-run adjacent-cell dedup ("run")
     # reproduces per-ring voxel thinning without the 28.8K-row sort the
-    # exact global-voxel path ("voxel") pays — measured 1.36 -> ~0.1 ms on
-    # the chip, ATE-equivalent (see PERF.md).  The cloud is only the
+    # exact global-voxel path ("voxel") pays, ATE-equivalent (see PERF.md).
+    # The cloud is only the
     # odometry's surf correspondence SOURCE, where density (not centroid
     # exactness) is what matters; "run" keeps real measured points, closer
     # to the reference's per-ring behavior than a global voxel grid.
@@ -169,8 +162,8 @@ class OdometryConfig:
     # schedule refreshed every iteration through round 2.  Refreshing at
     # iterations {0, 3} only is measured ATE-equivalent on all three
     # synthetic worlds (loop 0.0317/0.0316, courtyard 0.0291/0.0285,
-    # figure8 0.6563/0.6518 fused, r=1 vs r=3, TPU 2026-08-21) and cuts the
-    # dominant class_nn cost ~2.5x -> +10 scans/s on the headline bench.
+    # figure8 0.6563/0.6518 fused, r=1 vs r=3) and runs the dominant
+    # class_nn search 2 times instead of 5.
     corr_refresh_every: int = 3
     step_damping: float = 0.2262
     nearest_sq_dist: float = 25.0          # nearestFeatureSearchSqDist (utility.h:125)
@@ -196,7 +189,7 @@ class OdometryConfig:
     conv_rot_deg: float = 0.1              # featureAssociation.cpp:1367-1376
     conv_trans_cm: float = 0.1
     skip_frame_num: int = 1                # feed mapping every 2nd frame (284)
-    # De-skew feedback damping (TPU-side enhancement; reference = 1.0).  The
+    # De-skew feedback damping (an enhancement; reference = 1.0).  The
     # reference warps its "last" reference clouds to scan end with the scan's
     # OWN estimated transform (TransformToEnd, featureAssociation.cpp:885),
     # which couples each scan's estimation error into the next scan's
@@ -284,14 +277,12 @@ class MappingConfig:
     submap_rebuild_dist: float = 10.0
     # Pending keyframes fold into the cached submap in ONE re-voxelization
     # every this many insertions (update_submap_cache) instead of per step —
-    # the per-step ~57K-row sort was the dominant mapping-step cost on the
-    # chip.  Between folds the submap lags at most batch-1 keyframes (the
-    # most recent = most redundant with the current scan); 1 restores the
-    # per-step merge.  Measured (chip, grow-512): 1 -> 127, 4 -> 147, 8 ->
-    # 158, 16 -> 160 scans/s; accuracy at 8 is ledger-equal (circuit fused
-    # 0.498 m / 0.178% end drift vs 0.512 / 0.177% at 4; ring fused
-    # 0.043 vs 0.039 m) while 16 saturates the gain with 2x the lag — 8 is
-    # the knee.
+    # a per-step ~57K-row sort otherwise dominates the mapping step.
+    # Between folds the submap lags at most batch-1 keyframes (the most
+    # recent = most redundant with the current scan); 1 restores the
+    # per-step merge.  Accuracy at 8 is ledger-equal (circuit fused 0.498 m
+    # / 0.178% end drift vs 0.512 / 0.177% at 4; ring fused 0.043 vs
+    # 0.039 m).
     submap_merge_batch: int = 8
     # Submap keyframe selection:
     #   "radius" (default) — the reference's loopClosureEnableFlag=false path
@@ -310,10 +301,7 @@ class MappingConfig:
     scan_corner_cap: int = 2048                # downsampled current-scan sizes
     scan_surf_cap: int = 8192
     voxel_table_size: int = 1 << 17            # hash-table slots for voxel filters
-    # 5-NN implementation: "auto" = single-distance-pass Pallas kernel on
-    # TPU, XLA multi-pass elsewhere; "pallas" / "xla" force one.
-    knn_backend: str = "auto"
-    # --- map-feedback stabilizers (TPU-side; the reference has neither) ---
+    # --- map-feedback stabilizers (the reference has neither) ---
     # Scan-to-map LM runs only once the submap holds this many keyframes.
     # Below it the mapped pose = odometry-projected guess and keyframes are
     # stored from odometry, whose short-horizon relative drift is small —
@@ -392,9 +380,6 @@ class LoopClosureConfig:
     icp_max_iters: int = 100                   # mapOptmization.cpp:894
     icp_max_corr_dist: float = 100.0
     icp_eps: float = 1e-6
-    # "auto": Pallas packed-min kNN on TPU, XLA elsewhere; "xla"/"pallas"
-    # force one (same contract as FeatureConfig.picks_backend et al.).
-    icp_backend: str = "auto"
     submap_leaf: float = 0.4
     cur_cap: int = 8192                        # dense caps for the ICP clouds
     hist_cap: int = 32768
@@ -434,7 +419,6 @@ class RelocalizeConfig:
     # worlds (see models/relocalize.py).
     refine_top_k: int = 4
     icp_eps: float = 1e-6
-    icp_backend: str = "auto"
     fitness_thresh: float = 0.3                # getFitnessScore accept bound
 
 
@@ -455,7 +439,7 @@ class PoseGraphConfig:
     composition of its chain measurements), so the reference's per-keyframe
     ``isam->update`` would return the input unchanged — see
     COMPONENTS.md's deviation list.  At <=20K poses a full re-solve is
-    microseconds-scale on TPU and strictly more accurate than incremental
+    cheap on an accelerator and strictly more accurate than incremental
     relinearization.
     """
 
@@ -517,26 +501,24 @@ def for_sensor(name: str) -> "PipelineConfig":
     The VLP-16 cap defaults undersize denser sensors: sectioned picks scale
     with the ring count (sections x picks x n_scan — e.g. VLS-128's
     6x4x128 = 3072 sharp candidates vs the 512 cap) and the per-scan
-    downsampled clouds grow with point density.  Feature caps scale by the
-    ring ratio (rounded up to 256 for kernel tiling); mapping scan caps
-    scale too but stay within the Pallas kNN's 16-bit index budget.  The
-    overflow counters (ScanFeatures.overflow, no-silent-caps) verify the
-    scaled caps never truncate."""
+    downsampled clouds grow with point density.  Feature and mapping scan
+    caps scale by the ring ratio (rounded up to 256).  The overflow counters
+    (ScanFeatures.overflow, no-silent-caps) verify the scaled caps never
+    truncate."""
     sensor = SENSORS[name]
     s = sensor.n_scan / 16.0
     if s <= 1.0:
         return DEFAULT.replace(sensor=sensor)
 
-    def r(v, cap=1 << 16):
-        return min(int(math.ceil(v * s / 256.0) * 256), cap)
+    def r(v):
+        return int(math.ceil(v * s / 256.0) * 256)
 
     feat = dataclasses.replace(
         DEFAULT.feat, max_sharp=r(512), max_less_sharp=r(2048),
         max_flat=r(1024), max_less_flat=r(8192), max_outlier=r(2048))
     mapping = dataclasses.replace(
         DEFAULT.mapping,
-        scan_corner_cap=r(2048, cap=8192),
-        scan_surf_cap=r(8192, cap=32768))
+        scan_corner_cap=r(2048), scan_surf_cap=r(8192))
     return DEFAULT.replace(sensor=sensor, feat=feat, mapping=mapping)
 
 
@@ -569,7 +551,7 @@ def apply_overrides(sub, kvs):
 
 DEFAULT = PipelineConfig()
 
-# Reference-exact preset: every TPU-side enhancement off, every schedule and
+# Reference-exact preset: every enhancement off, every schedule and
 # count at the reference's hard-coded value.  This is the executable form of
 # the "set X to reproduce the reference" notes scattered through the field
 # docstrings above; tests/test_reference_preset.py runs it end-to-end and

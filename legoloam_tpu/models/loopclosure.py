@@ -125,7 +125,7 @@ def close_and_correct(
     res = icp_ops.icp(
         cur_pts, cur_val, hist_pts, hist_val, Pose.identity(),
         max_corr_dist=cfg.icp_max_corr_dist, max_iters=cfg.icp_max_iters,
-        eps=cfg.icp_eps, backend=cfg.icp_backend)
+        eps=cfg.icp_eps)
 
     # PCL-compatible acceptance (mapOptmization.cpp:904): hasConverged() is
     # true on ANY termination including the iteration cap, so acceptance is

@@ -6,9 +6,9 @@ chain along the trajectory, loop-closure between-factors with ICP-fitness
 noise, incremental ``isam->update()`` after every keyframe, and ``correctPoses``
 rewriting the keyframe store after a loop closes.
 
-Design (TPU-first, SURVEY.md §7 hard-part 5): instead of reproducing iSAM2's
-Bayes-tree incremental bookkeeping — pointer-chasing the TPU cannot execute —
-we re-solve the full graph with Gauss-Newton in LINK SPACE.  The variables are
+Design (SURVEY.md §7 hard-part 5): instead of reproducing iSAM2's
+Bayes-tree incremental bookkeeping — pointer-chasing that dense array code
+cannot express — we re-solve the full graph with Gauss-Newton in LINK SPACE.  The variables are
 per-link corrections u_k (node perturbation v_k = Σ_{m<=k} u_m, a plain
 cumsum): in these coordinates every chain factor touches exactly ONE variable,
 so the chain Hessian is block-diagonal (D_k = B_kᵀ W B_k with B_k = Ad(x_k⁻¹),

@@ -118,7 +118,7 @@ def relocalize(
                           Pose.identity(),
                           max_corr_dist=cfg.icp_max_corr_dist,
                           max_iters=cfg.coarse_iters,
-                          eps=cfg.icp_eps, backend=cfg.icp_backend)
+                          eps=cfg.icp_eps)
         # PCL hasConverged() + fitness gate (the reference's check,
         # mapOptmization.cpp:904): true on ANY termination incl. the
         # iteration cap — same semantics as models/loopclosure.py.
@@ -153,7 +153,7 @@ def relocalize(
                           Pose.identity(),
                           max_corr_dist=cfg.icp_max_corr_dist,
                           max_iters=cfg.icp_max_iters,
-                          eps=cfg.icp_eps, backend=cfg.icp_backend)
+                          eps=cfg.icp_eps)
         fit_r = jnp.where(ok_r & res.has_converged, res.fitness, jnp.inf)
         T_r = Pose(se3.mat3_mul(res.pose.R, T_c.R),
                    se3.rotate_vec(res.pose.R, T_c.t) + res.pose.t)

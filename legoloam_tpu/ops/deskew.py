@@ -153,8 +153,8 @@ def deskew_image(
 
     R_s = euler_zyx_to_mat(rpy_s[0], rpy_s[1], rpy_s[2])
     R_p = euler_zyx_to_mat(rpy_p[..., 0], rpy_p[..., 1], rpy_p[..., 2])
-    # p' = R_s^T R_p p + R_s^T shift_from_start  (rotate_vec: exact-f32 VPU
-    # form — K=3 einsums hit the MXU's bf16 default precision, see ops/se3.py)
+    # p' = R_s^T R_p p + R_s^T shift_from_start  (rotate_vec: exact-f32
+    # elementwise form, independent of matmul precision, see ops/se3.py)
     p_rot = rotate_vec(R_s.T, rotate_vec(R_p, xyz))
     p_corr = p_rot + rotate_vec(R_s.T, shift_from_start)
     out = jnp.where(cell_valid[..., None], p_corr, xyz)

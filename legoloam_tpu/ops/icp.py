@@ -4,8 +4,8 @@ Reference usage: loop-closure alignment (``src/mapOptmization.cpp:875-945``)
 with maxCorrespondenceDistance=100, 100 iterations, eps 1e-6, no RANSAC, and
 acceptance by ``getFitnessScore() < 0.3`` (mean squared NN distance).
 
-TPU design: correspondences are one brute-force kNN (MXU matmul) per
-iteration; the rigid update is the closed-form Umeyama/Kabsch solve (SVD of
+Design: correspondences are one brute-force 1-NN search per iteration
+(``knn_pallas.search``); the rigid update is the closed-form Umeyama/Kabsch solve (SVD of
 the 3x3 cross-covariance) over masked correspondences — no per-point loops.
 """
 
@@ -19,7 +19,7 @@ import jax.numpy as jnp
 
 from . import se3
 from .se3 import Pose
-from .voxel import knn
+from .knn_pallas import search as knn_search
 
 
 class IcpResult(NamedTuple):
@@ -40,7 +40,7 @@ class IcpResult(NamedTuple):
     n_corr: jax.Array
 
 
-@functools.partial(jax.jit, static_argnames=("max_iters", "backend"))
+@functools.partial(jax.jit, static_argnames=("max_iters",))
 def icp(
     src: jax.Array, src_valid: jax.Array,
     dst: jax.Array, dst_valid: jax.Array,
@@ -48,39 +48,15 @@ def icp(
     max_corr_dist: float = 100.0,
     max_iters: int = 100,
     eps: float = 1e-6,
-    backend: str = "auto",
 ) -> IcpResult:
     """Align src onto dst starting from ``init``."""
-    if backend not in ("auto", "xla", "pallas"):
-        raise ValueError(f"icp backend must be 'auto', 'xla' or 'pallas', "
-                         f"got {backend!r}")
     max_corr_sq = max_corr_dist * max_corr_dist
-
-    # Packed-minimum Pallas kernel on TPU (one distance pass, index packed
-    # into the f32 mantissa); XLA multi-pass elsewhere.  No culling gate: the
-    # reference's maxCorrespondenceDistance=100 effectively disables culling.
-    # ``backend``: "auto" keys off jax.default_backend(); pass "xla" when
-    # compiling for a device that differs from the default backend (e.g. the
-    # virtual CPU mesh dry-run in a process that already touched the TPU).
-    shapes_ok = (src.shape[0] % 256 == 0 and dst.shape[0] % 512 == 0
-                 and dst.shape[0] <= (1 << 16))
-    if backend == "pallas" and not shapes_ok:
-        raise ValueError(
-            f"icp backend='pallas' forced but shapes src={src.shape} "
-            f"dst={dst.shape} fail the tile gate (src%256==0, dst%512==0, "
-            f"dst<=65536); use backend='auto' to fall back to XLA")
-    use_pallas = shapes_ok and (
-        backend == "pallas"
-        or (backend == "auto" and jax.default_backend() not in ("cpu",)))
 
     def corr_stats(T: Pose):
         moved = se3.transform_points(T, src)
-        if use_pallas:
-            from .knn_pallas import knn_pallas
-            d, i = knn_pallas(moved, src_valid, dst, dst_valid, k=1)
-        else:
-            d, i = knn(moved, src_valid, dst, dst_valid, k=1,
-                       q_tile=512, r_tile=8192)
+        # No culling gate: the reference's maxCorrespondenceDistance=100
+        # reaches across the whole history cloud.
+        d, i = knn_search(moved, src_valid, dst, dst_valid, k=1, q_tile=512)
         match = src_valid & (d[:, 0] < max_corr_sq)
         return moved, dst[i[:, 0]], match, d[:, 0]
 

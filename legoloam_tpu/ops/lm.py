@@ -6,8 +6,8 @@ Replaces the reference's OpenCV dense linear algebra (``cv::solve(DECOMP_QR)``,
 (``src/mapOptmization.cpp:1229-1327``).
 
 Everything here is batched: residual rows are assembled as dense masked arrays
-(invalid rows zeroed), the normal equations are one (N, D)ᵀ(N, D) matmul on the
-MXU, and the solve + degeneracy analysis run on tiny DxD systems.
+(invalid rows zeroed), the normal equations are one (N, D)ᵀ(N, D) matmul, and
+the solve + degeneracy analysis run on tiny DxD systems.
 
 Degeneracy handling mirrors the reference exactly: on the first iteration,
 eigen-decompose JᵀJ; zero out eigendirections with eigenvalue below the
@@ -39,7 +39,7 @@ def analyze_degeneracy(AtA: jax.Array, eig_thresh: float) -> DegeneracyState:
     """Reference degeneracy analysis: eigen-decompose the normal matrix and
     build the projection that zeroes under-constrained directions.
 
-    3x3 systems use the closed-form symmetric eigensolver (TPU-friendly);
+    3x3 systems use the closed-form symmetric eigensolver (branch-free);
     larger systems fall back to ``jnp.linalg.eigh``.  For symmetric AtA the
     eigenbasis is orthonormal, so V⁻¹ = Vᵀ and the reference's
     ``matV.inv() * matV2`` is just Vᵀ·V2 — no solve needed."""
@@ -65,9 +65,10 @@ def assemble_normal_equations(
     single-device assembly — this split is the distributed-mapping hook."""
     Jm = jnp.where(row_valid[:, None], J, 0.0)
     rm = jnp.where(row_valid, r, 0.0)
-    # HIGHEST precision: XLA would otherwise feed the MXU bf16-truncated
-    # inputs for these f32 contractions over the (large) row axis, putting
-    # ~0.4% noise on the 6x6 normal equations the GN solve then amplifies.
+    # HIGHEST precision: below it XLA may feed reduced-precision operands
+    # (bf16 or TF32) to these f32 contractions over the (large) row axis,
+    # putting ~0.1-0.4% noise on the 6x6 normal equations the GN solve then
+    # amplifies.
     hi = jax.lax.Precision.HIGHEST
     return (jnp.matmul(Jm.T, Jm, precision=hi),
             jnp.matmul(Jm.T, -damping * rm, precision=hi))
@@ -98,7 +99,7 @@ def solve_assembled(
     # Solve the (possibly ill-conditioned) system with a tiny Tikhonov floor to
     # keep the solve finite; the degeneracy projection then removes the bad
     # directions exactly as the reference's matP does.  Closed-form solves
-    # (no pivoted LU) — these run inside lax.while_loop on TPU.
+    # (no pivoted LU) — these run inside lax.while_loop on the device.
     d = AtA.shape[0]
     if d == 3:
         delta = smallalg.solve3(AtA + 1e-6 * jnp.eye(3), AtB)

@@ -5,10 +5,10 @@ Reference behavior: ``src/imageProjection.cpp:199-257`` (``findStartEndAngle`` +
 images; here the whole scan is projected with one fused batch of vector ops plus
 three deterministic segment reductions.
 
-Design notes (TPU-first):
+Design notes:
   * Everything downstream consumes the DENSE image — there is no compaction into a
-    variable-length "fullCloud"; validity is a mask channel.  This is the layout
-    the VPU wants (fixed (16, 1800) planes) and removes every dynamic shape.
+    variable-length "fullCloud"; validity is a mask channel.  Fixed (16, 1800)
+    planes vectorize cleanly and remove every dynamic shape.
   * Cell collisions (two points projecting to one cell): the reference overwrites
     in point order (last write wins, nondeterministic under reordering);
     we keep the CLOSEST point per cell, deterministically (ties -> lowest point

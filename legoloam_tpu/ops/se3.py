@@ -6,8 +6,8 @@ hand-expanded closed-form Euler expressions (``src/featureAssociation.cpp:1015-1
 ``AccumulateRotation``, ``src/mapOptmization.cpp:376-461`` /
 ``src/transformFusion.cpp:94-179`` ``transformAssociateToMap``).
 
-The TPU-native design replaces all of that with rotation matrices and tangent-space
-(so(3)/se(3)) updates: composition is a batched matmul (MXU work), interpolation is
+The rebuild replaces all of that with rotation matrices and tangent-space
+(so(3)/se(3)) updates: composition is a batched 3x3 product, interpolation is
 ``exp(t * log(R))``, and the "monster expression" ``transformAssociateToMap`` becomes
 the three-line ``T_guess = T_aft ∘ T_bef⁻¹ ∘ T_now``.
 
@@ -52,12 +52,12 @@ class Pose(NamedTuple):
 def rotate_vec(R: jax.Array, v: jax.Array) -> jax.Array:
     """``R (..., 3, 3) @ v (..., 3)`` as the explicit 9-term expansion.
 
-    Deliberately NOT a matmul/einsum: a K=3 contraction pads the 128x128 MXU
-    to ~0.05% utilization AND inherits the backend's default matmul precision
-    — on TPU that truncates f32 to bf16, which at world coordinates ~70 m is
-    ~0.1 m of quantization per transformed point (the root cause of the
-    ring-world mapping runaway; see ``legoloam_tpu/__init__``).  The VPU
-    elementwise form is exact f32 and faster."""
+    Deliberately NOT a matmul/einsum: a K=3 contraction inherits the
+    backend's default matmul precision, and a reduced-precision f32 dot
+    (bf16 operands: ~0.1 m at 70 m world coordinates; TF32: ~cm) per
+    transformed point drove a ring-world mapping runaway (see
+    ``legoloam_tpu/__init__``).  The elementwise form is exact f32 whatever
+    the precision setting."""
     return jnp.stack([
         R[..., 0, 0] * v[..., 0] + R[..., 0, 1] * v[..., 1]
         + R[..., 0, 2] * v[..., 2],
@@ -71,16 +71,15 @@ def rotate_vec(R: jax.Array, v: jax.Array) -> jax.Array:
 def mat3_mul(A: jax.Array, B: jax.Array) -> jax.Array:
     """``A (..., 3, 3) @ B (..., 3, 3)`` as the explicit per-column expansion.
 
-    Deliberately NOT a matmul (same reason as ``rotate_vec``): on TPU a 3x3
-    matmul inherits the backend's matmul precision — even the library-wide
-    "high" (bf16_3x) default carries a SYSTEMATIC ~1e-5 contraction per
-    product (measured: det drifts to 0.974 over 800 f32 compositions; raw
-    bf16 is far worse).  Pose rotations pass through thousands of chained
+    Deliberately NOT a matmul (same reason as ``rotate_vec``): a 3x3 matmul
+    inherits the backend's matmul precision, and a reduced-precision one
+    (bf16_3x) carries a SYSTEMATIC ~1e-5 contraction per product (measured:
+    det drifts to 0.974 over 800 f32 compositions; raw bf16 is far worse).  Pose rotations pass through thousands of chained
     compositions (odometry integrate, LM retracts, guess projection), and the
     accumulated contraction shrinks world-transformed keyframe clouds — at
     ~130 scans the no-IMU mapped pose had det 0.85, smearing the submap and
-    driving the runaway ring-world divergence this fixes.  The VPU
-    elementwise form is exact f32 and faster at K=3."""
+    driving the runaway ring-world divergence this fixes.  The
+    elementwise form is exact f32 and cheaper at K=3."""
     return jnp.stack([rotate_vec(A, B[..., :, j]) for j in range(3)], axis=-1)
 
 
@@ -308,7 +307,7 @@ def camera_to_lidar(p: Pose) -> Pose:
 
 
 def project_through_correction(t_now: Pose, t_bef: Pose, t_aft: Pose) -> Pose:
-    """TPU-native ``transformAssociateToMap``.
+    """Array-native ``transformAssociateToMap``.
 
     The reference implements this as ~80 lines of expanded Euler algebra
     (``src/mapOptmization.cpp:376-461`` and again ``src/transformFusion.cpp:94-179``);

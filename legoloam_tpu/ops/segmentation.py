@@ -6,7 +6,7 @@ Reference behavior: ``src/imageProjection.cpp:260-460`` (``groundRemoval``,
 The reference's ``labelComponents`` is a queue-based BFS from every unlabeled cell
 with hand-rolled array queues ("use std::queue ... will slow the program down
 greatly", imageProjection.cpp:138-142).  BFS is inherently sequential; the
-TPU-native replacement is classic GPU connected-component labeling:
+replacement is classic GPU connected-component labeling in plain XLA:
 
   1. Precompute the 4-neighbor connectivity ONCE from the angle predicate
      (imageProjection.cpp:411-423) — a handful of fused elementwise ops.
@@ -121,7 +121,7 @@ def _label_propagation(seed_mask: jax.Array, conn_h: jax.Array, conn_v: jax.Arra
                        max_iters: int) -> jax.Array:
     """Connected components by alternating SEGMENTED MIN-SCANS.
 
-    TPU-first replacement of the reference's queue BFS: a parallel-prefix
+    Data-parallel replacement of the reference's queue BFS: a parallel-prefix
     (associative_scan) min over each horizontal run propagates a label across
     an ENTIRE row-run (wrap-around included, via array doubling) in one pass;
     alternating with vertical scans carries labels around corners.  ``sweeps``
@@ -202,17 +202,7 @@ def segment(img: RangeImage, sensor: SensorConfig,
 
     seeds = img.valid & ~ground
     conn_h, conn_v = _connectivity(img, sensor, cfg)
-    use_pallas = cfg.ccl_backend == "pallas" or (
-        cfg.ccl_backend == "auto" and jax.default_backend() not in ("cpu",))
-    if use_pallas:
-        from .ccl_pallas import label_propagation_pallas
-        # Interpreter mode lets the "pallas" path run (and be tested) on CPU.
-        labels, rmin_cell, rmax_cell = label_propagation_pallas(
-            seeds, conn_h, conn_v, cfg.ccl_max_iters,
-            interpret=jax.default_backend() == "cpu")
-    else:
-        labels = _label_propagation(seeds, conn_h, conn_v, cfg.ccl_max_iters)
-        rmin_cell = rmax_cell = None
+    labels = _label_propagation(seeds, conn_h, conn_v, cfg.ccl_max_iters)
     flat_labels = labels.reshape(-1)
 
     # Cluster validity (imageProjection.cpp:440-451): size >= 30, or size >=
@@ -233,18 +223,14 @@ def segment(img: RangeImage, sensor: SensorConfig,
     sizes = jax.ops.segment_sum(ones, flat_labels, num_segments=n_cells + 1)
     cell_size = sizes[flat_labels].reshape(n, h)
     ring_of = (jnp.arange(n_cells, dtype=jnp.int32) // h)
-    if rmin_cell is None:
-        rmin = jax.ops.segment_min(
-            jnp.where(seeds_flat, ring_of, n), flat_labels,
-            num_segments=n_cells + 1)
-        rmax = jax.ops.segment_max(
-            jnp.where(seeds_flat, ring_of, -1), flat_labels,
-            num_segments=n_cells + 1)
-        rmin_flat = rmin[flat_labels]
-        cell_rspan = (rmax[flat_labels] - rmin_flat + 1).reshape(n, h)
-    else:
-        rmin_flat = rmin_cell.reshape(-1)
-        cell_rspan = rmax_cell - rmin_cell + 1
+    rmin = jax.ops.segment_min(
+        jnp.where(seeds_flat, ring_of, n), flat_labels,
+        num_segments=n_cells + 1)
+    rmax = jax.ops.segment_max(
+        jnp.where(seeds_flat, ring_of, -1), flat_labels,
+        num_segments=n_cells + 1)
+    rmin_flat = rmin[flat_labels]
+    cell_rspan = (rmax[flat_labels] - rmin_flat + 1).reshape(n, h)
     in_min_row = seeds_flat & (ring_of == rmin_flat)
     min_row_count = jax.ops.segment_sum(
         in_min_row.astype(jnp.int32), flat_labels, num_segments=n_cells + 1)

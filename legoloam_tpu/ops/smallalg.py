@@ -4,9 +4,9 @@ Why this exists: the reference leans on OpenCV's ``cv::solve(DECOMP_QR)`` and
 ``cv::eigen`` for 3x3/6x6 systems (``src/featureAssociation.cpp:1324-1356``,
 ``src/mapOptmization.cpp:1126,1189,1273-1305``).  The naive JAX translation —
 ``jnp.linalg.solve`` / ``jnp.linalg.eigh`` — lowers to pivoted LU and iterative
-eigensolvers, which are scalar-heavy control-flow codes a TPU executes orders
-of magnitude slower than closed forms, especially inside ``lax.while_loop``
-solver iterations and for batched (N, 3, 3) fits.
+eigensolvers, scalar-heavy control-flow codes that run orders of magnitude
+slower on an accelerator than closed forms, especially inside
+``lax.while_loop`` solver iterations and for batched (N, 3, 3) fits.
 
 Everything here is pure VPU elementwise math, batched over leading dims:
   * ``solve3``: Cramer/adjugate 3x3 solve.

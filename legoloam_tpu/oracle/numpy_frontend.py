@@ -1,7 +1,7 @@
 """Faithful NumPy port of the reference front-end RULES, as a test oracle.
 
 This module re-implements, loop for loop, the per-scan decision rules of the
-reference's first two stages so the TPU pipeline can be machine-checked
+reference's first two stages so the JAX pipeline can be machine-checked
 against them (SURVEY.md §7 build-order step 2):
 
   * ``findStartEndAngle``    — reference ``src/imageProjection.cpp:199-209``

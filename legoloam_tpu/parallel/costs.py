@@ -3,11 +3,10 @@
 Everything here is host-computable from static shapes (config + mesh size):
 collective payload bytes per distributed mapping step, per-shard work rows,
 and the single-device equivalents — so the mesh-vs-single step composition
-is a printed number, not an asserted claim (PERF.md "Multi-chip cost
-accounting"; VERDICT r2 item 7).
+is a printed number, not an asserted claim (``tools/dist_cost.py``).
 
-Conventions: payloads are BYTES MOVED PER DEVICE per mapping step (the ICI
-bisection view: an ``all_gather`` of per-shard payload ``p`` over ``n``
+Conventions: payloads are BYTES MOVED PER DEVICE per mapping step (NVLink,
+all to all: an ``all_gather`` of per-shard payload ``p`` over ``n``
 devices moves ``(n-1)*p`` inbound per device; a ``psum`` of payload ``p``
 costs ``~2p`` in a ring reduce-scatter + all-gather).
 """

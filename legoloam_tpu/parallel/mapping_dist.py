@@ -1,6 +1,6 @@
 """Sharded keyframe map: submap assembly over a device mesh.
 
-BASELINE.json config 5: "keyframes/map blocks sharded on v5e-16".  The
+BASELINE.json config 5: keyframes/map blocks sharded over a mesh.  The
 keyframe axis of the ``KeyframeStore`` shards across the mesh; submap assembly
 becomes:
 
@@ -8,15 +8,15 @@ becomes:
      nearest in-radius keyframes (local top-S/n);
   2. each device gathers + world-transforms its selected clouds and runs a
      LOCAL exact voxel downsample to submap_cap/n points;
-  3. one ``all_gather`` over ICI replicates the per-shard submaps; the caller
+  3. one ``all_gather`` over NVLink (all to all) replicates the per-shard submaps; the caller
      concatenates (duplicate voxels across shards are impossible — each
      keyframe lives on exactly one shard; voxels co-populated by keyframes on
      different shards simply contribute one centroid per shard, the same
      behavior as the reference's per-keyframe cloud concatenation before its
      final downsample, mapOptmization.cpp:1057-1064).
 
-This is the memory-scaling axis: each host holds M/n keyframes' clouds, so the
-20K-keyframe Stevens-scale map fits a v5e-16 with room to spare.
+This is the memory-scaling axis: each device holds M/n keyframes' clouds, so
+the 20K-keyframe Stevens-scale map fits a small mesh with room to spare.
 """
 
 from __future__ import annotations

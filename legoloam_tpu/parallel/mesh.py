@@ -10,8 +10,10 @@ TCPROS (SURVEY.md §2 parallelism inventory); the rebuild's first-class axes
     pose-graph factor axis and keyframe/map-block axis for the distributed
     mapping backend.
 
-On one host this maps to ICI within a slice; across hosts JAX's runtime rides
-DCN automatically (single-controller jax.distributed).
+The mesh is flat: on one host the GPUs are joined all to all by NVLink, so
+every device reaches every other at the same rate and the mesh follows the
+algorithm alone; across hosts JAX's runtime carries the collectives
+(jax.distributed).
 """
 
 from __future__ import annotations

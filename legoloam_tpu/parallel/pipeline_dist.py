@@ -519,7 +519,7 @@ def close_and_correct_dist(
     res = icp_ops.icp(
         cur_pts, cur_val, hist_pts, hist_val, Pose.identity(),
         max_corr_dist=cfg.icp_max_corr_dist, max_iters=cfg.icp_max_iters,
-        eps=cfg.icp_eps, backend=cfg.icp_backend)
+        eps=cfg.icp_eps)
     # PCL hasConverged() semantics — cap-terminated good alignments accepted
     # (matches models/loopclosure.py; mapOptmization.cpp:904).
     accept = has_cand & res.has_converged & (res.fitness < cfg.fitness_thresh)

@@ -35,11 +35,7 @@ def capture_frontend(points, valid, ring, cfg):
 
     img = projection.project_scan(points, valid, cfg.sensor, ring=ring)
     seg = segmentation.segment(img, cfg.sensor, cfg.seg)
-    feat_cfg = cfg.feat
-    if feat_cfg.picks_backend != "xla":
-        import dataclasses
-        feat_cfg = dataclasses.replace(feat_cfg, picks_backend="xla")
-    feats, dbg = feat_ops.extract_features(img, seg, cfg.sensor, feat_cfg,
+    feats, dbg = feat_ops.extract_features(img, seg, cfg.sensor, cfg.feat,
                                            return_debug=True)
     return {
         "range": img.rng,                   # (N, H) f32, 0 where no return

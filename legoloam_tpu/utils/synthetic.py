@@ -140,7 +140,7 @@ def circuit_scene(half: float = 100.0) -> Scene:
     100 -> a ~766 m circuit): once the vehicle is a side away, the start-area
     keyframes are ~200 m out of range, drift accumulates on fresh terrain,
     and the return to start is a REAL loop-closure event — the reference's
-    Stevens-dataset regime (``/root/reference/README.md:104-106``).
+    Stevens-dataset regime (reference ``README.md:104-106``).
 
     Geometry: outer wall square at half+12, inner wall square at half-12
     (a 24 m lane), poles + crates along both lane edges for edge features.

@@ -2,7 +2,7 @@
 //
 // The reference's data path is ROS middleware C++: rosbag playback feeding
 // TCPROS subscribers (reference: README.md:90-102, the four nodes'
-// subscribers).  This is its TPU-native equivalent: a small C++ runtime that
+// subscribers).  This is its array-native equivalent: a small C++ runtime that
 // reads scan files (KITTI .bin / PCD / raw packed), filters and pads them to
 // the fixed-size array layout the jitted pipeline consumes, and prefetches
 // ahead of the host loop on background threads so device dispatch never waits

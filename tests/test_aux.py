@@ -14,7 +14,7 @@ from legoloam_tpu.models import pipeline
 from legoloam_tpu.ops.se3 import Pose
 from legoloam_tpu.utils import checkpoint, export, synthetic
 
-# CPU-sized map capacities (the default 65K-point submaps are TPU-scale).
+# CPU-sized map capacities (the default submaps are accelerator-scale).
 CFG = DEFAULT.replace(mapping=dataclasses.replace(
     DEFAULT.mapping, max_keyframes=128, submap_corner_cap=4096,
     submap_surf_cap=8192, scan_corner_cap=1024, scan_surf_cap=4096))

@@ -31,7 +31,7 @@ SMALL_MAP = dataclasses.replace(
     # batch=1 keeps the block-mode programs (already the
     # suite's biggest compiles) free of the fold/skip cond
     # branch; batched folds are covered by test_mapping +
-    # the TPU bench.
+    # the GPU bench.
     submap_merge_batch=1)
 CFG = DEFAULT.replace(mapping=SMALL_MAP)
 
@@ -98,7 +98,7 @@ def test_bootstrap_recovers_fast_start():
     boot = run(True)
     e_plain = float(np.linalg.norm(plain[-1] - gt[-1]))
     e_boot = float(np.linalg.norm(boot[-1] - gt[-1]))
-    # Measured (TPU + CPU agree to cm): plain ~1.35 m, boot ~0.53 m.
+    # Measured on the CPU: plain ~1.35 m, boot ~0.53 m.
     assert e_boot < 0.8 * e_plain, (e_boot, e_plain)
     assert e_boot < 0.8, e_boot
 

@@ -1,12 +1,13 @@
-"""Circuit-course drift lock (VERDICT r3 #7): the rounded-square course
+"""Circuit-course drift lock: the rounded-square course
 LARGER than the submap radius — drift accumulates on fresh terrain instead
 of being absorbed by implicit re-localization.
 
 Runs at realistic sensor noise (sigma=2 cm, the VLP-16's own floor): the
 noiseless case is dominated by deterministic sampling aliasing that cannot
-occur on real returns (PERF.md round-4 noise-paradox section).  Chip
-reference numbers (1150 scans / 919 m): odometry end drift 1.43%, fused
-0.20% — the bounds here are looser to absorb CPU/chip reassociation and the
+occur on real returns (PERF.md round-4 noise-paradox section).  Reference
+numbers from a full-length run on the previous accelerator (1150 scans /
+919 m): odometry end drift 1.43%, fused 0.20% — the bounds here are looser
+to absorb CPU/accelerator reassociation and the
 shorter course (360 scans ~ 290 m keeps the slow tier's
 CPU cost bounded).
 """
@@ -53,10 +54,11 @@ def test_circuit_end_drift_under_one_percent():
     fused_drift = float(np.linalg.norm(fused[-1] - gt[-1]))
     odo_drift = float(np.linalg.norm(odoms[-1] - gt[-1]))
     assert np.isfinite(fused).all()
-    # The FUSED stream is the system output and the verdict metric; chip:
-    # 0.83% at scan 360, 0.20% at the full 1150-scan lap.  Odometry end
-    # drift is course-PHASE-dependent (yaw-integrated errors partially
-    # cancel over a closed lap: 6.4% at scan 360 -> 1.43% at 1150, chip ==
-    # CPU), so it only gets a sanity bound here.
+    # The FUSED stream is the system output and the verdict metric (full
+    # runs on the previous accelerator: 0.83% at scan 360, 0.20% at the
+    # full 1150-scan lap).  Odometry end drift is course-PHASE-dependent
+    # (yaw-integrated errors partially cancel over a closed lap: 6.4% at
+    # scan 360 -> 1.43% at 1150, same on the CPU), so it only gets a sanity
+    # bound here.
     assert fused_drift < 0.01 * path, (fused_drift, path)
     assert odo_drift < 0.08 * path, (odo_drift, path)

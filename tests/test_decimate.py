@@ -2,7 +2,7 @@
 
 The reference's keyframe store is unbounded (``cornerCloudKeyFrames`` etc.,
 ``src/mapOptmization.cpp:84-86``) and its validation runs exceed 20K scans
-(``README.md:104-106``).  The TPU store is a compile-time shape, so at the
+(``README.md:104-106``).  Here the store is a compile-time shape, so at the
 cap the system must (a) COUNT what it drops (no-silent-caps) and (b) offer
 graceful sparsification (``mapping.decimate_keyframes``) that drivers invoke
 before overflow ever happens (``pipeline.maybe_decimate``)."""

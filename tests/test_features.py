@@ -95,7 +95,7 @@ def test_feature_cap_overflow_counted(feats_and_inputs):
     assert not np.asarray(feats.overflow).any()     # defaults never overflow
     tiny = dataclasses.replace(
         DEFAULT.feat, max_sharp=8, max_less_sharp=16, max_flat=8,
-        max_less_flat=64, max_outlier=8, picks_backend="xla")
+        max_less_flat=64, max_outlier=8)
     f2 = features.extract_features(img, seg, VLP16, tiny)
     over = np.asarray(f2.overflow)
     assert (over > 0).all(), over

@@ -19,7 +19,7 @@ CFG = DEFAULT.replace(mapping=dataclasses.replace(
     # batch=1 keeps the block-mode programs (already the
     # suite's biggest compiles) free of the fold/skip cond
     # branch; batched folds are covered by test_mapping +
-    # the TPU bench.
+    # the GPU bench.
     submap_merge_batch=1))
 
 

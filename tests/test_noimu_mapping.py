@@ -2,14 +2,12 @@
 
 The reference runs IMU-less by default and stays stable over 20K scans
 (``src/mapOptmization.cpp:463-496`` blends IMU only when present;
-``README.md:42`` "9-DOF IMU optional").  Round 2's rebuild regressed here on
-TPU (fused 14.4 m vs odometry-only 2.06 m ATE on the 800-scan ring world —
-root-caused to rotation-matmul contraction, see test_rotation_precision.py);
-this locks the fixed behavior: over a partial ring-world lap with no IMU,
-the fused trajectory must beat odometry-only by a wide margin.
-
-Committed chip evidence (tools/eval_long.py --world loop --scans 800, TPU,
-2026-08-21): odometry-only ATE 2.25 m, fused 0.036 m, end drift 0.37%.
+``README.md:42`` "9-DOF IMU optional").  Round 2's rebuild regressed here
+under reduced-precision matmuls (fused ATE far worse than odometry-only on
+the 800-scan ring world — root-caused to rotation-matmul contraction, see
+test_rotation_precision.py); this locks the fixed behavior: over a partial
+ring-world lap with no IMU, the fused trajectory must beat odometry-only by
+a wide margin.
 """
 
 import jax

@@ -12,7 +12,7 @@ environment, so the artifacts are synthesized into the replay path):
 
 Acceptance: no NaNs anywhere, the pipeline keeps producing poses, and
 accuracy degrades gracefully (bounded multiple of the clean run).
-Reference contrast: ``/root/reference/README.md:98-106`` validates only on
+Reference contrast: reference ``README.md:98-106`` validates only on
 clean dense bags."""
 
 import dataclasses

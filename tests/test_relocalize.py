@@ -121,7 +121,7 @@ def test_relocalize_rejects_unmapped_place():
 
 @pytest.mark.slow
 def test_kidnap_multisession_reloc_beats_no_reloc():
-    """VERDICT r3 #1 acceptance: checkpoint -> restart at a perturbed pose on
+    """Multi-session acceptance: checkpoint -> restart at a perturbed pose on
     mapped territory -> the ICP relocalization path beats the no-reloc run by
     >= 2x fused ATE through the ordinary slam_scan_step driver (no
     hand-drifted stores).  CPU-scale version of tools/eval_kidnap.py (the

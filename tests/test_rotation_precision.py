@@ -1,13 +1,12 @@
-"""Regression guards for the TPU rotation-precision root cause (round 3).
+"""Regression guards for the rotation-precision root cause (round 3).
 
-On TPU, 3x3 rotation matmuls inherit the backend matmul precision; even the
-library-wide "high" default carries a systematic ~1e-5 contraction per
-product, which random-walks accumulated pose rotations off SO(3) over
+3x3 rotation matmuls inherit the backend matmul precision; a reduced
+precision (bf16_3x) carries a systematic ~1e-5 contraction per product, which random-walks accumulated pose rotations off SO(3) over
 thousands of compositions (measured: mapped-pose det 0.85 after 130 scans,
 driving the no-IMU ring-world mapping runaway).  The fixes under guard here:
 
   * ``se3.mat3_mul`` / ``se3.rotate_vec`` everywhere rotations compose —
-    elementwise VPU expansions whose jaxprs must contain NO ``dot_general``
+    elementwise expansions whose jaxprs must contain NO ``dot_general``
     (backend-independent check: CPU f32 matmuls are exact, so a numeric
     test could not catch a reintroduced ``@`` on CPU).
   * ``se3.so3_project`` orthonormality insurance on accumulated rotations.
@@ -28,7 +27,7 @@ def _jaxpr_has_dot(fn, *args):
 def test_rotation_composition_lowering_has_no_matmul():
     """compose / retract_about / euler_zyx_to_mat / so3_exp / se3_exp must
     lower to elementwise ops only — a ``@`` would reintroduce the
-    precision-dependent contraction on TPU."""
+    precision-dependent contraction on an accelerator."""
     p = Pose(jnp.eye(3), jnp.zeros(3))
     xi = jnp.zeros(6)
     assert not _jaxpr_has_dot(se3.compose, p, p)

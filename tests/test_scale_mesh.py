@@ -1,7 +1,7 @@
 """Stevens-scale keyframe store on the virtual 8-device mesh.
 
 `parallel/mapping_dist.py` claims the 20K-keyframe Stevens-scale map
-(reference `/root/reference/README.md:104-106`: >20K scans) fits a sharded
+(reference `README.md:104-106`: >20K scans) fits a sharded
 mesh with room to spare; this EXECUTES that configuration instead of
 asserting it: a 16384-capacity store holding 16000 synthetic keyframes on an
 8-device mesh, with scaled-down per-keyframe cloud caps so the test stays
@@ -81,7 +81,7 @@ def test_16k_keyframes_shard_and_match_single_device():
     total_cloud_mb = (kf.corner.size + kf.surf.size) * 4 / 2**20
     per_dev_mb = total_cloud_mb / 8
     # At full VLP-16 caps (2048/8192 pts) the same layout scales to
-    # 16384 x 10240 x 3 x 4 B = 1.9 GB total, 120 MB/device on a v5e-16.
+    # 16384 x 10240 x 3 x 4 B = 1.9 GB total, 120 MB/device on 16 devices.
 
     # --- submap selection correctness at high count ---
     center = kf.t[N_KF - 100]

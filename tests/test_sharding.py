@@ -149,7 +149,7 @@ def test_sharded_scan_to_map_matches_single_device():
 
     cfg = dataclasses.replace(
         DEFAULT.mapping, scan_corner_cap=512, scan_surf_cap=2048,
-        submap_corner_cap=4096, submap_surf_cap=8192, knn_backend="xla")
+        submap_corner_cap=4096, submap_surf_cap=8192)
 
     key = jax.random.PRNGKey(7)
     # Submap: gently curved floor + wall surfaces + a line of poles.  Curved

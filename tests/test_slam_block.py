@@ -18,7 +18,7 @@ SMALL_MAP = dataclasses.replace(
     # batch=1 keeps the block-mode programs (already the
     # suite's biggest compiles) free of the fold/skip cond
     # branch; batched folds are covered by test_mapping +
-    # the TPU bench.
+    # the GPU bench.
     submap_merge_batch=1)
 CFG = DEFAULT.replace(mapping=SMALL_MAP)
 

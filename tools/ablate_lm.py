@@ -29,7 +29,7 @@ def main():
     from legoloam_tpu.config import DEFAULT
     from legoloam_tpu.models import mapping, pipeline
     from legoloam_tpu.ops import lm, se3
-    from legoloam_tpu.ops.knn_pallas import knn_pallas
+    from legoloam_tpu.ops.knn_pallas import search
     from legoloam_tpu.ops.se3 import Pose
     from legoloam_tpu.ops.voxel import voxel_downsample
     from legoloam_tpu.utils import synthetic
@@ -78,9 +78,10 @@ def main():
     pc_w = se3.transform_points(opose, c_pts)
     ps_w = se3.transform_points(opose, s_pts)
 
-    knnp = jax.jit(lambda q, qv, r, rv: knn_pallas(q, qv, r, rv, k=5))
-    timed("knn_pallas surf (8192x32768)", lambda: knnp(ps_w, s_ok, sub_s, sub_sv))
-    timed("knn_pallas corner (2048x8192)", lambda: knnp(pc_w, c_ok, sub_c, sub_cv))
+    gate = float(mc.nn_max_dist) ** 0.5
+    knnp = jax.jit(lambda q, qv, r, rv: search(q, qv, r, rv, k=5, gate=gate))
+    timed("knn 5-NN surf", lambda: knnp(ps_w, s_ok, sub_s, sub_sv))
+    timed("knn 5-NN corner", lambda: knnp(pc_w, c_ok, sub_c, sub_cv))
 
     cres = jax.jit(lambda p, v: mapping._corner_residuals(p, v, sub_c, sub_cv, mc))
     sres = jax.jit(lambda p, v: mapping._surf_residuals(p, v, sub_s, sub_sv, mc))

@@ -46,11 +46,6 @@ def main():
     ap.add_argument("--set", action="append", default=[], metavar="K=V",
                     help="override any MappingConfig field, e.g. "
                          "--set surrounding_leaf=0.01 --set ground_anchor=0")
-    ap.add_argument("--picks-backend", default=None,
-                    choices=["pallas", "xla"],
-                    help="force the feature-picks backend")
-    ap.add_argument("--ccl-backend", default=None, choices=["pallas", "xla"],
-                    help="force the segmentation CCL backend")
     args = ap.parse_args()
     if args.radius is None:
         args.radius = 30.0 if args.world == "loop" else 26.0
@@ -81,12 +76,6 @@ def main():
     from legoloam_tpu.config import apply_overrides
     m = apply_overrides(m, args.set)
     cfg = cfg.replace(mapping=m)
-    if args.picks_backend:
-        cfg = cfg.replace(feat=dataclasses.replace(
-            cfg.feat, picks_backend=args.picks_backend))
-    if args.ccl_backend:
-        cfg = cfg.replace(seg=dataclasses.replace(
-            cfg.seg, ccl_backend=args.ccl_backend))
     scene = (synthetic.loop_scene() if args.world == "loop"
              else synthetic.default_scene())
     n = args.scans

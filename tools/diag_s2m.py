@@ -30,8 +30,6 @@ def main():
     ap.add_argument("--n-kf", type=int, default=12)
     ap.add_argument("--motion", action="store_true",
                     help="raycast with motion distortion (scan-end gt frame)")
-    ap.add_argument("--knn", default=None, choices=["pallas", "xla"],
-                    help="force the 5-NN backend")
     ap.add_argument("--refresh", type=int, default=None,
                     help="override corr_refresh_every")
     ap.add_argument("--iters", type=int, default=None,
@@ -54,8 +52,6 @@ def main():
 
     cfg = DEFAULT
     mcfg = cfg.mapping
-    if args.knn:
-        mcfg = dataclasses.replace(mcfg, knn_backend=args.knn)
     if args.refresh:
         mcfg = dataclasses.replace(mcfg, corr_refresh_every=args.refresh)
     if args.iters:

@@ -15,7 +15,7 @@ Two session-2 runs through the ordinary ``slam_scan_step`` driver:
      the restored keyframe map), then the identical driver.
 
 Reports fused ATE / end drift for both (session-2 ground truth, map frame);
-the acceptance criterion (VERDICT r3 #1) is B beating A by >= 2x.  The
+the acceptance criterion is B beating A by >= 2x.  The
 checkpoint is round-tripped through utils/checkpoint save/load to prove the
 resume path carries the map.
 

@@ -5,7 +5,7 @@ into the replay formats this framework ingests: per-scan ``.lpk`` files
 sidecar (``utils/io.py:write_imu``).
 
 The reference consumes rosbags directly over ROS topics
-(``/root/reference/README.md:90-102``: ``rosbag play *.bag --clock``,
+(reference ``README.md:90-102``: ``rosbag play *.bag --clock``,
 ``/velodyne_points`` + ``/imu/data``); there is no ROS in this environment,
 so replay is bag -> files -> ``python -m legoloam_tpu --scans 'out/*.lpk'
 --imu out/seq.imu``.
